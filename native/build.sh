@@ -1,6 +1,8 @@
 #!/bin/sh
-# Build the native PLY codec -> splatapult_tpu/io/_libsplatply.so
+# Build the native PLY codec -> native/build/libsplatply.so (the same build
+# splatapult_jax/io/native.py runs at first use).
 set -e
 cd "$(dirname "$0")"
-g++ -O3 -shared -fPIC -pthread -std=c++17 -o ../splatapult_tpu/io/_libsplatply.so splatply.cpp
-echo "built ../splatapult_tpu/io/_libsplatply.so"
+mkdir -p build
+g++ -O3 -shared -fPIC -pthread -std=c++17 -o build/libsplatply.so splatply.cpp
+echo "built native/build/libsplatply.so"

@@ -1,6 +1,6 @@
 // splatply: native binary-PLY vertex-blob codec for the data-loading path.
 //
-// The TPU-native analog of the reference's C++ PLY layer (ref: src/ply.cpp):
+// The native analog of the reference's C++ PLY layer (ref: src/ply.cpp):
 // the Python side parses the (tiny) header, then delegates the hot part —
 // de-interleaving the vertex blob into column-major float32 arrays and the
 // inverse re-interleave on export — to this library via ctypes. For the

@@ -31,9 +31,9 @@ def build_problem(width=32, height=64, views=4, num_splats=64):
     """Deterministic scene/cameras/targets, identical on every process."""
     import jax.numpy as jnp
 
-    from splatapult_tpu.core import transforms as T
-    from splatapult_tpu.io.gaussians import GaussianScene
-    from splatapult_tpu.render import Camera, RenderConfig
+    from splatapult_jax.core import transforms as T
+    from splatapult_jax.io.gaussians import GaussianScene
+    from splatapult_jax.render import Camera, RenderConfig
 
     rng = np.random.default_rng(7)
     quats = rng.standard_normal((num_splats, 4)).astype(np.float32)
@@ -68,7 +68,7 @@ def build_problem(width=32, height=64, views=4, num_splats=64):
 def main():
     process_id, num_processes, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 
-    from splatapult_tpu.parallel.distributed import (
+    from splatapult_jax.parallel.distributed import (
         initialize_distributed,
         local_target_shards,
         make_pod_mesh,
@@ -89,7 +89,7 @@ def main():
     mesh = make_pod_mesh(num_view_shards=num_processes)
     print(f"MESH {dict(mesh.shape)}", flush=True)
 
-    from splatapult_tpu.parallel.mesh import shard_targets, sharded_train_step
+    from splatapult_jax.parallel.mesh import shard_targets, sharded_train_step
 
     padded = np.asarray(shard_targets(targets, config, mesh))
     # this host's view rows (the views axis maps to processes in this layout)

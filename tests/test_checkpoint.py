@@ -3,15 +3,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.checkpoint import (
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.checkpoint import (
     load_scene_npz,
     load_train_state,
     save_scene_npz,
     save_train_state,
 )
-from splatapult_tpu.io.gaussians import make_debug_scene
-from splatapult_tpu.render import Camera, RenderConfig, render_batch
+from splatapult_jax.io.gaussians import make_debug_scene
+from splatapult_jax.render import Camera, RenderConfig, render_batch
 
 
 def _scenes_equal(a, b):

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from splatapult_tpu.cli import main
-from splatapult_tpu.utils.image import load_png
+from splatapult_jax.cli import main
+from splatapult_jax.utils.image import load_png
 
 
 def test_cli_info(capsys, test_ply_path):
@@ -50,7 +50,7 @@ def test_cli_render_nosh_fp16(tmp_path, test_ply_path):
 def test_cli_export_and_prune(tmp_path, test_ply_path):
     out = str(tmp_path / "export.ply")
     main(["export", test_ply_path, "-o", out, "--prune", "8"])
-    from splatapult_tpu.io.gaussians import load_gaussian_ply
+    from splatapult_jax.io.gaussians import load_gaussian_ply
 
     scene = load_gaussian_ply(out)
     assert scene.num_gaussians == 8
@@ -82,7 +82,7 @@ def test_cli_path(tmp_path, test_ply_path):
 
 
 def test_cli_points(tmp_path):
-    from splatapult_tpu.io.points import make_debug_points, save_point_ply
+    from splatapult_jax.io.points import make_debug_points, save_point_ply
 
     ply = str(tmp_path / "input.ply")
     save_point_ply(ply, make_debug_points())
@@ -151,7 +151,7 @@ def test_cli_synth_debug(tmp_path, capsys):
 
 
 def test_cli_render_stereo_shared_bins(tmp_path, test_ply_path):
-    # --stereo drives the shared-binning stereo path (splatapult_tpu/stereo.py)
+    # --stereo drives the shared-binning stereo path (splatapult_jax/stereo.py)
     out = str(tmp_path / "stereo.png")
     main([
         "render", test_ply_path, "-o", out, "--width", "32", "--height", "32",
@@ -165,7 +165,7 @@ def test_cli_render_stereo_shared_bins(tmp_path, test_ply_path):
 def test_cli_render_stereo_global_fallback(tmp_path, test_ply_path):
     # --stereo with --pipeline global (or --supersample > 1) cannot use the
     # shared-binning path (tiled-only); it must fall back to the per-eye
-    # render_batch path and still honor both flags (ADVICE r3)
+    # render_batch path and still honor both flags
     out = str(tmp_path / "stereo_g.png")
     main([
         "render", test_ply_path, "-o", out, "--width", "32", "--height", "32",
@@ -183,12 +183,12 @@ def test_cli_fit_orbit(tmp_path, capsys):
     import jax
     import jax.numpy as jnp
 
-    from splatapult_tpu.cli import _orbit_rig
-    from splatapult_tpu.io.gaussians import (
+    from splatapult_jax.cli import _orbit_rig
+    from splatapult_jax.io.gaussians import (
         load_gaussian_ply, make_debug_scene, save_gaussian_ply,
     )
-    from splatapult_tpu.render import Camera, RenderConfig, render
-    from splatapult_tpu.utils.image import save_png
+    from splatapult_jax.render import Camera, RenderConfig, render
+    from splatapult_jax.utils.image import save_png
 
     scene = make_debug_scene()
     w = h = 32

@@ -1,4 +1,4 @@
-"""Path-cluster shared-binning tests (splatapult_tpu/cluster.py).
+"""Path-cluster shared-binning tests (splatapult_jax/cluster.py).
 
 Shared binning across a view cluster is EXACT for pure in-plane translations
 (the stereo invariance, generalized to K views) and bounded-approximate for
@@ -10,15 +10,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from splatapult_tpu.cluster import (
+from splatapult_jax.cluster import (
     calibrate_config_cluster,
     cluster_shareable,
     render_cluster,
     render_path_clustered,
 )
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import GaussianScene
-from splatapult_tpu.render import Camera, RenderConfig, render, render_batch
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import GaussianScene
+from splatapult_jax.render import Camera, RenderConfig, render, render_batch
 
 CFG = RenderConfig(
     width=64, height=64, pipeline="tiled", tile_size=16, tile_block=8,
@@ -95,8 +95,7 @@ def test_cluster_inplane_matches_per_view_exactly(rng):
 def test_cluster_path_views_bounded_error():
     # OWN deterministic generator (not the shared session rng): the committed
     # error contract below is scene-dependent, and the shared fixture makes
-    # the drawn scene depend on which tests ran first in the session
-    # (ADVICE r4: passes alone, fails after test_tiled/test_render).
+    # the drawn scene depend on which tests ran first in the session.
     scene = _random_scene(np.random.default_rng(1234), n=96)
     cams = _path_cluster(k=4, dt=0.04)
     want = _per_view(scene, cams, CFG)

@@ -5,7 +5,7 @@ import os
 
 import numpy as np
 
-from splatapult_tpu.io.configs import (
+from splatapult_jax.io.configs import (
     discover_scene,
     estimate_floor_plane,
     find_config_file,
@@ -13,7 +13,7 @@ from splatapult_tpu.io.configs import (
     load_vr_config,
     save_vr_config,
 )
-from splatapult_tpu.io.points import (
+from splatapult_jax.io.points import (
     load_point_ply,
     make_debug_points,
     points_as_gaussians,
@@ -92,9 +92,9 @@ def test_vr_config_roundtrip(tmp_path):
     np.testing.assert_allclose(back, m, atol=1e-6)
 
 
-def test_load_reference_vr_config():
-    # the shipped pose for data/test.ply (ref: data/test_vr.json)
-    m = load_vr_config("/root/reference/data/test_vr.json")
+def test_load_reference_vr_config(test_ply_path):
+    # the fixture's pose file beside test.ply (tests/fixture_data.py)
+    m = load_vr_config(test_ply_path[: -len(".ply")] + "_vr.json")
     assert m.shape == (4, 4)
     np.testing.assert_allclose(m[3], [0.0, 0.0, 0.0, 1.0])
     # column-major storage means the translation lives in m[:3, 3]
@@ -132,8 +132,8 @@ def test_points_roundtrip(tmp_path):
 def test_points_as_gaussians_render():
     import jax.numpy as jnp
 
-    from splatapult_tpu.core import transforms as T
-    from splatapult_tpu.render import Camera, RenderConfig, render
+    from splatapult_jax.core import transforms as T
+    from splatapult_jax.render import Camera, RenderConfig, render
 
     pts = make_debug_points()
     scene = points_as_gaussians(pts, world_radius=0.02)

@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.densify import (
+from splatapult_jax.core import transforms as T
+from splatapult_jax.densify import (
     DensifyConfig, _bucket_capacity, densify_and_prune, fit_scene_adaptive,
 )
-from splatapult_tpu.io.gaussians import GaussianScene, make_debug_scene
-from splatapult_tpu.render import Camera, RenderConfig, render
+from splatapult_jax.io.gaussians import GaussianScene, make_debug_scene
+from splatapult_jax.render import Camera, RenderConfig, render
 
 CFG = RenderConfig(width=32, height=32, pipeline="tiled", tile_size=16,
                    tile_block=8, max_instance_mult=20)
@@ -109,7 +109,7 @@ def test_bucket_capacity_geometric():
 def test_grad_stat_fit_steps_accumulates():
     import optax
 
-    from splatapult_tpu.train import _grad_stat_fit_steps
+    from splatapult_jax.train import _grad_stat_fit_steps
 
     scene = make_debug_scene()
     cams = _cameras()

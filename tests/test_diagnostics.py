@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.diagnostics import phase_timer, render_stats
-from splatapult_tpu.io.gaussians import make_debug_scene
-from splatapult_tpu.render import Camera, RenderConfig
+from splatapult_jax.core import transforms as T
+from splatapult_jax.diagnostics import phase_timer, render_stats
+from splatapult_jax.io.gaussians import make_debug_scene
+from splatapult_jax.render import Camera, RenderConfig
 
 
 def test_render_stats():
@@ -36,11 +36,11 @@ def test_phase_timer():
 
 def test_sort_key_mode_gates_and_stats_field():
     """sort_key_mode reports the ACTIVE key mode: packed20 under 2048 tiles,
-    exact32 at/above it (the ADVICE r4 sentinel-overflow boundary), and
-    render_stats surfaces it (VERDICT r4 weak #5)."""
+    exact32 at/above it (the sentinel-overflow boundary), and
+    render_stats surfaces it."""
     import dataclasses
 
-    from splatapult_tpu.ops.binning import TileGrid, sort_key_mode
+    from splatapult_jax.ops.binning import TileGrid, sort_key_mode
 
     g = TileGrid.create(width=1024, height=512, num_splats=8, tile_size=16,
                         depth_bits=20)
@@ -55,9 +55,9 @@ def test_sort_key_mode_gates_and_stats_field():
 def test_render_stats_reports_sort_key_mode():
     import dataclasses
 
-    from splatapult_tpu.core import transforms as T
-    from splatapult_tpu.io.gaussians import make_debug_scene
-    from splatapult_tpu.render import Camera, RenderConfig
+    from splatapult_jax.core import transforms as T
+    from splatapult_jax.io.gaussians import make_debug_scene
+    from splatapult_jax.render import Camera, RenderConfig
 
     scene = make_debug_scene()
     cam = Camera.from_fov(
@@ -78,13 +78,13 @@ def test_depth20_downgrade_logs_warning(caplog):
 
     import jax.numpy as jnp
 
-    from splatapult_tpu.ops.binning import TileGrid, bin_splats
+    from splatapult_jax.ops.binning import TileGrid, bin_splats
 
     grid = TileGrid.create(width=1024, height=512, num_splats=4, tile_size=16,
                            block=8, depth_bits=20)  # exactly 2048 tiles
     mean2d = jnp.asarray([[8.0, 8.0], [100.0, 400.0], [900.0, 300.0],
                           [100.0, 400.0]], jnp.float32)
-    with caplog.at_level(logging.WARNING, logger="splatapult_tpu"):
+    with caplog.at_level(logging.WARNING, logger="splatapult_jax"):
         bin_splats(mean2d, jnp.full((4, 2), 30.0), grid,
                    depth=jnp.asarray([3.0, 1.0, 2.0, 1.5]))
     assert any("packed-key budget" in r.message for r in caplog.records)
@@ -92,21 +92,21 @@ def test_depth20_downgrade_logs_warning(caplog):
 
 def test_bench_profiles_agree():
     """The CLI bench's --profile production must configure exactly the knobs
-    bench.py's defaults configure (VERDICT r4 weak #4: the two bench entry
-    points silently measured different configurations)."""
+    bench.py's defaults configure (the two bench entry points must not
+    silently measure different configurations)."""
     import argparse
 
     import bench as bench_mod
-    from splatapult_tpu.render import (
+    from splatapult_jax.render import (
         PROFILES, RenderConfig, apply_profile, profile_name,
     )
 
     # bench.py's default flags -> its production config
     args = argparse.Namespace(
-        width=1920, height=1080, tile_size=32, tile_block=128,
+        width=1920, height=1080, tile_size=16, tile_block=16,
         instance_mult=0.0, early_stop=1e-4, grad_sort_dtype="bfloat16",
-        packed_colors=True, packed_feats16="auto", fwd_only=False,
-        depth_bits=0, splats=1_500_000)
+        packed_colors=True, packed_feats16=False, fwd_only=False,
+        depth_bits=0, splats=1_500_000, sort_bands=1)
     cfg_bench = bench_mod._make_config(args)
     assert profile_name(cfg_bench) == "production"
 

@@ -64,7 +64,7 @@ def test_two_process_train_step_matches_single_process():
         assert results[0][1][k] == pytest.approx(results[1][1][k], rel=1e-5), k
 
     # single-process oracle on this process's own 8 virtual devices
-    from splatapult_tpu.parallel.mesh import (
+    from splatapult_jax.parallel.mesh import (
         make_render_mesh, shard_targets, sharded_train_step,
     )
     from tests.distributed_worker import build_problem

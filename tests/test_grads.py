@@ -2,13 +2,16 @@
 checked against central finite differences (BASELINE config 2; SURVEY.md
 section 4, item 4)."""
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import GaussianScene, make_debug_scene
-from splatapult_tpu.render import Camera, RenderConfig, render
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import GaussianScene, make_debug_scene
+from splatapult_jax.render import Camera, RenderConfig, render
 
 # alpha_cutoff=0 removes the 1/256 discard discontinuity so finite differences
 # are valid everywhere; a separate test covers grads with the cutoff enabled.
@@ -145,42 +148,35 @@ def test_camera_grads_flow():
     assert np.abs(g).max() > 0
 
 
-def test_seg_gather_split_branch_matches(monkeypatch):
-    """The large-table 8+2 segment-gather split (residency-cliff workaround,
-    PERF.md r5) must produce gradients identical to the single [emax, 9]
-    gather. CPU tests never reach the 60 MB threshold, so force the branch."""
-    import dataclasses
-
-    import splatapult_tpu.ops.composite as C
-    from splatapult_tpu.io.gaussians import GaussianScene
-    from splatapult_tpu.core import transforms as T
-    from splatapult_tpu.render import Camera, RenderConfig, render
-
-    rng = np.random.default_rng(21)
-    n = 64
-    quats = rng.standard_normal((n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    scene = GaussianScene(
-        means=jnp.asarray(rng.uniform(-0.8, 0.8, (n, 3)), jnp.float32),
-        sh=jnp.asarray(rng.standard_normal((n, 3, 1)) * 0.5, jnp.float32),
-        opacities=jnp.asarray(rng.uniform(-1, 2.5, (n,)), jnp.float32),
-        log_scales=jnp.asarray(rng.uniform(-3.5, -1.5, (n, 3)), jnp.float32),
-        quats=jnp.asarray(quats),
+@pytest.mark.parametrize("pipeline", ["global", "tiled"])
+def test_grads_finite_with_splats_on_camera_plane(pipeline):
+    """Culled splats at (almost) zero view depth get zero, not NaN,
+    gradients: the projection Jacobian's 1/tz^2 must not overflow for them
+    (inf times the zero cotangent would poison means/scales/quats)."""
+    scene = _small_scene()
+    cam = _camera()
+    c2w = np.asarray(cam.cam_to_world, np.float64)
+    eye, right, fwd = c2w[:3, 3], c2w[:3, 0], -c2w[:3, 2]
+    plane = np.stack([eye + 0.3 * right + s * fwd
+                      for s in (0.0, 1e-7, -1e-7, 1e-6)]).astype(np.float32)
+    k = plane.shape[0]
+    grown = GaussianScene(
+        means=jnp.concatenate([scene.means, jnp.asarray(plane)]),
+        sh=jnp.concatenate([scene.sh, jnp.full((k,) + scene.sh.shape[1:], 0.5)]),
+        opacities=jnp.concatenate([scene.opacities, jnp.full((k,), 2.0)]),
+        log_scales=jnp.concatenate([scene.log_scales, jnp.full((k, 3), -2.0)]),
+        quats=jnp.concatenate([scene.quats, jnp.tile(
+            jnp.asarray([[0.9, 0.1, 0.3, 0.3]]), (k, 1))]),
     )
-    cam = Camera.from_fov(
-        T.look_at(eye=[1.2, 1.1, 1.3], target=[0.3, 0.3, 0.3], up=[0, 1, 0]),
-        fovy=np.pi / 4, width=64, height=64)
-    cfg = RenderConfig(width=64, height=64, pipeline="tiled", tile_size=16,
-                       tile_block=8, max_instance_mult=20)
+    cfg = dataclasses.replace(CFG_CUTOFF, pipeline=pipeline, tile_size=16,
+                              tile_block=8)
+    target = jnp.zeros((cfg.height, cfg.width, 4))
 
     def loss(s):
-        return jnp.mean(render(s, cam, cfg) ** 2)
+        return jnp.mean((render(s, cam, cfg) - target) ** 2)
 
-    ga = jax.grad(loss)(scene)
-    with monkeypatch.context() as m:
-        m.setattr(C, "_SEG_GATHER_SPLIT_BYTES", 0)  # force the split branch
-        gb = jax.grad(loss)(scene)
+    grads = jax.grad(loss)(grown)
     for name in ("means", "sh", "opacities", "log_scales", "quats"):
-        np.testing.assert_array_equal(np.asarray(getattr(ga, name)),
-                                      np.asarray(getattr(gb, name)),
-                                      err_msg=name)
+        g = np.asarray(getattr(grads, name))
+        assert np.isfinite(g).all(), f"non-finite grad in {name}"
+        assert np.abs(g[-k:]).max() == 0.0, name  # culled: no contribution

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from splatapult_tpu.utils.image import composite_to_rgb, load_png, save_png
+from splatapult_jax.utils.image import composite_to_rgb, load_png, save_png
 
 
 def _random_premult_rgba(rng, h=7, w=5):

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from splatapult_tpu.io import native
-from splatapult_tpu.io.ply import read_ply
+from splatapult_jax.io import native
+from splatapult_jax.io.ply import read_ply
 
 
 def test_native_library_builds_and_loads():
-    # the shared library is checked in via native/build.sh; this repo expects
-    # it to be available on any box with g++ (it is part of the framework)
-    assert native.available(), "run native/build.sh to build _libsplatply.so"
+    # io/native.py builds the library from native/splatply.cpp at first use
+    # (native/build.sh does the same by hand) on any box with g++
+    assert native.available(), "run native/build.sh to build libsplatply.so"
 
 
 def test_decode_matches_numpy(test_ply_path):

@@ -8,16 +8,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import make_debug_scene
-from splatapult_tpu.parallel.mesh import (
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import make_debug_scene
+from splatapult_jax.parallel.mesh import (
     make_render_mesh,
     render_batch_sharded,
     render_sharded,
     shard_targets,
     sharded_train_step,
 )
-from splatapult_tpu.render import Camera, RenderConfig, render, render_batch
+from splatapult_jax.render import Camera, RenderConfig, render, render_batch
 
 CFG = RenderConfig(
     width=64, height=64, pipeline="tiled", tile_size=16, tile_block=8, max_instance_mult=20
@@ -77,7 +77,7 @@ def _random_scene(rng, n=48):
     # anisotropic random scene: the debug scene's identity quats + isotropic
     # covariances make quat grads degenerate (~0), which breaks relative
     # comparisons
-    from splatapult_tpu.io.gaussians import GaussianScene
+    from splatapult_jax.io.gaussians import GaussianScene
 
     quats = rng.standard_normal((n, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
@@ -162,7 +162,7 @@ def test_psum_in_bwd_marker_semantics():
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from splatapult_tpu.parallel.mesh import _psum_in_bwd
+    from splatapult_jax.parallel.mesh import _psum_in_bwd
 
     mesh = make_render_mesh(num_tile_shards=4, num_view_shards=2)
     x = jnp.arange(8.0)
@@ -186,37 +186,13 @@ def test_psum_in_bwd_marker_semantics():
     np.testing.assert_allclose(np.asarray(grad), np.full(8, 20.0), rtol=1e-6)
 
 
-def test_expand_impl_feasibility_selection():
-    """The auto impl order must pick onehot at garden-scale sizes where the
-    packed budget is infeasible, and reject both only past 2^24."""
-    from splatapult_tpu.ops.binning import _expand_impl_ok
-
-    # garden-scale: emax ~2.4M, 1.5M splats, 2040 tiles
-    emax, n, tiles = 2_408_448, 1_500_000, 2040
-    fbt, fbn = tiles.bit_length(), 60 .bit_length()
-    ob = max(emax.bit_length(), n.bit_length())
-    assert _expand_impl_ok("onehot", emax, n, tiles, fbt, fbn, ob)
-    assert not _expand_impl_ok("packed", emax, n, tiles, fbt, fbn, ob)
-    # small config: both feasible
-    emax, n, tiles = 65536, 4096, 48
-    fbt, fbn = tiles.bit_length(), 8 .bit_length()
-    ob = max(emax.bit_length(), n.bit_length())
-    assert _expand_impl_ok("onehot", emax, n, tiles, fbt, fbn, ob)
-    assert _expand_impl_ok("packed", emax, n, tiles, fbt, fbn, ob)
-    # past the one-hot exactness bound: neither
-    emax = 2**24
-    ob = emax.bit_length()
-    assert not _expand_impl_ok("onehot", emax, n, tiles, fbt, fbn, ob)
-    assert not _expand_impl_ok("packed", emax, n, tiles, fbt, fbn, ob)
-
-
 def test_ring_all_reduce_matches_psum():
     """The manual ppermute ring (parallel/mesh.ring_all_reduce) must equal
     lax.psum for every shard, including non-divisible flat lengths."""
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from splatapult_tpu.parallel.mesh import ring_psum
+    from splatapult_jax.parallel.mesh import ring_psum
 
     mesh = make_render_mesh(num_tile_shards=4, num_view_shards=2)
     rng = np.random.default_rng(9)
@@ -260,7 +236,7 @@ def test_sharded_grads_ring_allreduce_match():
         np.testing.assert_allclose(a / scale, b / scale, atol=1e-6, err_msg=name)
 
 
-# ------------------------------------------------- round 5: band-aware config 5
+# ---------------------------------------------------- band-aware config 5
 
 
 def test_prepare_sharded_bit_identical_nondivisible():
@@ -303,9 +279,9 @@ def test_band_demands_cover_and_bound():
     """band_instance_demands: each band's demand is <= the full-view demand,
     and the band sum >= the full demand (rects spanning a band boundary are
     counted once per band they touch)."""
-    from splatapult_tpu.ops.binning import TileGrid, instance_demand
-    from splatapult_tpu.parallel.mesh import band_instance_demands
-    from splatapult_tpu.render import prepare_splats
+    from splatapult_jax.ops.binning import TileGrid, instance_demand
+    from splatapult_jax.parallel.mesh import band_instance_demands
+    from splatapult_jax.render import prepare_splats
 
     rng = np.random.default_rng(9)
     scene = _random_scene(rng, n=64)
@@ -327,14 +303,14 @@ def test_band_demands_cover_and_bound():
 
 def test_calibrate_config_sharded_shrinks_per_chip_sort():
     """Band calibration must produce a strictly smaller per-chip instance
-    capacity than full-view calibration (each chip's sort runs at ~1/D rows,
-    VERDICT r4 item 1), while the sharded render still matches single-chip."""
+    capacity than full-view calibration (each chip's sort runs at ~1/D
+    rows), while the sharded render still matches single-chip."""
     import dataclasses as dc
 
-    from splatapult_tpu.ops.tiled import _grid_from_config
-    from splatapult_tpu.parallel.mesh import (
+    from splatapult_jax.ops.tiled import _grid_from_config
+    from splatapult_jax.parallel.mesh import (
         _shard_config, calibrate_config_sharded)
-    from splatapult_tpu.render import calibrate_config
+    from splatapult_jax.render import calibrate_config
 
     rng = np.random.default_rng(10)
     # big enough that the full-view demand clears the 4096-row emax floor
@@ -367,7 +343,7 @@ def test_fit_scene_mesh_chunked_matches_per_step():
     readback per chunk); its loss curve must match the per-step path."""
     import optax
 
-    from splatapult_tpu.train import fit_scene
+    from splatapult_jax.train import fit_scene
 
     rng = np.random.default_rng(11)
     scene = _random_scene(rng, n=32)
@@ -389,7 +365,7 @@ def test_fit_scene_mesh_chunked_matches_per_step():
 
 
 def test_render_sharded_contiguous_layout_matches_single():
-    """The round-4 contiguous band layout stays supported (band_layout A/B)."""
+    """The contiguous band layout stays supported (band_layout A/B)."""
     scene = make_debug_scene()
     cam = _camera()
     want = np.asarray(render(scene, cam, CFG))
@@ -426,9 +402,9 @@ def test_band_demands_interleaved_partitions_exactly():
     """Interleaved tile-row ownership partitions instances EXACTLY: the band
     demands must sum to the full-view demand (no rect spans two owners'
     rows twice — each (splat, tile) instance has one owner)."""
-    from splatapult_tpu.ops.binning import TileGrid, instance_demand
-    from splatapult_tpu.parallel.mesh import band_instance_demands
-    from splatapult_tpu.render import prepare_splats
+    from splatapult_jax.ops.binning import TileGrid, instance_demand
+    from splatapult_jax.parallel.mesh import band_instance_demands
+    from splatapult_jax.render import prepare_splats
 
     rng = np.random.default_rng(13)
     scene = _random_scene(rng, n=64)
@@ -456,7 +432,7 @@ def _perturbed(scene):
 def _fit_both(scene, cameras, targets, mesh, steps=3):
     import optax
 
-    from splatapult_tpu.parallel.mesh import (
+    from splatapult_jax.parallel.mesh import (
         make_sharded_fit_steps, zero_fit_steps,
     )
 
@@ -510,7 +486,7 @@ def test_zero_fit_views_axis_and_odd_n():
     # continuation round-trips the sharded opt_state
     import optax
 
-    from splatapult_tpu.parallel.mesh import zero_fit_steps
+    from splatapult_jax.parallel.mesh import zero_fit_steps
 
     opt = optax.adam(1e-2)
     s_z2, opt_state, l2 = zero_fit_steps(
@@ -528,7 +504,7 @@ def test_zero_fit_no_full_size_grad_allreduce():
 
     import optax
 
-    from splatapult_tpu.parallel.mesh import (
+    from splatapult_jax.parallel.mesh import (
         make_sharded_fit_steps, make_zero_fit_steps, pad_scene_to_mesh,
     )
 

@@ -4,8 +4,8 @@ import io
 
 import numpy as np
 
-from splatapult_tpu.io.ply import read_ply, write_ply, make_ply
-from splatapult_tpu.io.gaussians import (
+from splatapult_jax.io.ply import read_ply, write_ply, make_ply
+from splatapult_jax.io.gaussians import (
     load_gaussian_ply,
     make_debug_scene,
     prune_splats,
@@ -117,7 +117,7 @@ def test_debug_scene_matches_reference_constants():
     np.testing.assert_allclose(scene.means[15], [0.0, 0.0, 0.0])
     np.testing.assert_allclose(scene.sh[15, :, 0], [sh_one] * 3)
     # baked covariance reproduces the reference's COV_DIAG = 0.005
-    from splatapult_tpu.core.transforms import bake_covariance
+    from splatapult_jax.core.transforms import bake_covariance
 
     cov = np.asarray(bake_covariance(scene.quats, scene.log_scales))
     np.testing.assert_allclose(cov[0], np.eye(3) * 0.005, atol=1e-9)
@@ -132,7 +132,7 @@ def test_prune_splats_keeps_nearest():
     np.testing.assert_allclose(np.sort(dists), all_dists[:4])
 
 
-# --------------------------- round 5: degree-1/2 SH + adversarial robustness
+# ------------------------------------ degree-1/2 SH + adversarial robustness
 
 
 def _trainer_cols(n=5, rng_seed=3, rest=45, extra=None, pos_dtype=np.float32):
@@ -165,8 +165,8 @@ def _roundtrip(cols):
 
 def test_scene_from_ply_degree1_and_degree2():
     """9 / 24 f_rest coefficients load at K=4 / K=9 (degree-1/2 exports exist
-    in the wild; the container and sh_basis support them — a silent DC-only
-    degradation was VERDICT r4 missing #3)."""
+    in the wild; the container and sh_basis support them — no silent
+    DC-only degradation)."""
     for rest, k, deg in ((9, 4, 1), (24, 9, 2), (45, 16, 3), (0, 1, 0)):
         scene = scene_from_ply(_roundtrip(_trainer_cols(rest=rest)))
         assert scene.sh.shape == (5, 3, k), (rest, scene.sh.shape)
@@ -214,9 +214,9 @@ def test_scene_with_nan_and_zero_quat_renders_finite():
     unchecked."""
     import jax.numpy as jnp
 
-    from splatapult_tpu.core import transforms as T
-    from splatapult_tpu.io.gaussians import GaussianScene
-    from splatapult_tpu.render import Camera, RenderConfig, render
+    from splatapult_jax.core import transforms as T
+    from splatapult_jax.io.gaussians import GaussianScene
+    from splatapult_jax.render import Camera, RenderConfig, render
 
     cols = _trainer_cols(n=6)
     cols["x"][0] = np.nan          # NaN position

@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.core.project import project_gaussians
-from splatapult_tpu.io.gaussians import load_gaussian_ply, make_debug_scene
-from splatapult_tpu.reference.raster import reference_render
-from splatapult_tpu.render import Camera, RenderConfig, render, render_batch
+from splatapult_jax.core import transforms as T
+from splatapult_jax.core.project import project_gaussians
+from splatapult_jax.io.gaussians import load_gaussian_ply, make_debug_scene
+from splatapult_jax.reference.raster import reference_render
+from splatapult_jax.render import Camera, RenderConfig, render, render_batch
 
 
 def _debug_camera(width=128, height=128, eye=(1.2, 1.1, 1.3)):
@@ -217,8 +217,8 @@ def test_calibrate_config_right_sizes_capacity():
     """calibrate_config fits the measured demand with headroom: rendering
     under the calibrated capacity matches the generous-default render and
     reports zero overflow."""
-    from splatapult_tpu.ops.binning import TileGrid, bin_splats
-    from splatapult_tpu.render import calibrate_config, prepare_splats
+    from splatapult_jax.ops.binning import TileGrid, bin_splats
+    from splatapult_jax.render import calibrate_config, prepare_splats
 
     scene = make_debug_scene()
     cfg = RenderConfig(width=64, height=64, pipeline="tiled", tile_size=16,
@@ -251,7 +251,7 @@ def test_calibrate_config_right_sizes_capacity():
 
 def test_bucket_capacity_mult_grid():
     """bucket_capacity_mult rounds UP onto the geometric grid, never down."""
-    from splatapult_tpu.render import CAPACITY_BUCKET, bucket_capacity_mult
+    from splatapult_jax.render import CAPACITY_BUCKET, bucket_capacity_mult
 
     for m in (0.3, 1.0, 1.07, 1.7199, 2.49, 5000.0):
         q = bucket_capacity_mult(m)
@@ -264,11 +264,11 @@ def test_bucket_capacity_mult_grid():
 
 def test_calibrate_config_bucketing_shares_compiles():
     """Nearby cameras (demands within one geometric bucket) must calibrate to
-    an IDENTICAL config — the whole point: config equality == compile reuse
-    (VERDICT r3 item 7). A 4-view sweep of near-coincident cameras compiles
+    an IDENTICAL config — the whole point: config equality == compile reuse.
+    A 4-view sweep of near-coincident cameras compiles
     once, not 4 times."""
     import bench
-    from splatapult_tpu.render import calibrate_config
+    from splatapult_jax.render import calibrate_config
 
     # big enough that the measured demand (not the 4096 floor) sets the mult
     scene = bench.make_scene(30_000, seed=3)
@@ -291,32 +291,15 @@ def test_calibrate_config_bucketing_shares_compiles():
         assert cal.max_instance_mult >= exact.max_instance_mult * (1 - 1e-12)
 
 
-def test_capacity_cliff_clamp():
-    """The pow2 sort-cliff clamp (capacity_mult_for_demand): when the demand
-    fits under a power-of-two mcap boundary but the bucketed capacity would
-    cross it, the capacity clamps down to stay under (lax.sort cost steps
-    ~35-50% at the boundary, tools/probe_sort_pow2.py / PERF.md round 4)."""
-    from splatapult_tpu.render import capacity_mult_for_demand
-
-    cfg = RenderConfig(width=1920, height=1080, pipeline="tiled",
-                       tile_size=32, tile_block=128)
-    pad_cap = 60 * 34 * 128  # 1080p tile32 grid
-
-    def emax_of(mult, n):
-        return max(4096, -(-int(mult * n) // 4096) * 4096)
+def test_capacity_mult_covers_demand():
+    """capacity_mult_for_demand: headroom over the demand, bucketed UP, and
+    never below the 4096-slot floor."""
+    from splatapult_jax.render import bucket_capacity_mult, capacity_mult_for_demand
 
     n = 1_000_000
-    demand = 1_723_000  # the 1M bench view's measured demand
-    mult = capacity_mult_for_demand(demand, n, cfg)
-    emax = emax_of(mult, n)
-    assert emax >= int(demand * 1.06)          # still fits the demand
-    assert emax + pad_cap <= 2 ** 21           # clamped under the cliff
-    # without the clamp the bucket grid (1.08^8 = 1.851) crosses it
-    from splatapult_tpu.render import bucket_capacity_mult
-
-    raw = bucket_capacity_mult(demand * 1.06 / n)
-    assert emax_of(raw, n) + pad_cap > 2 ** 21
-    # demand ABOVE the cliff: nothing to clamp to; capacity still covers it
-    demand_big = 2_300_000
-    mult_big = capacity_mult_for_demand(demand_big, n, cfg)
-    assert emax_of(mult_big, n) >= int(demand_big * 1.06)
+    for demand in (10, 1_723_000, 2_300_000):
+        mult = capacity_mult_for_demand(demand, n)
+        assert mult * n >= max(demand * 1.06, 4096) * (1 - 1e-12)
+        assert mult == bucket_capacity_mult(mult)  # on the grid
+        assert mult <= max(demand * 1.06, 4096) / n * 1.08 * (1 + 1e-9)
+    assert capacity_mult_for_demand(1_723_000, n, bucket=1.0) == 1_723_000 * 1.06 / n

@@ -4,7 +4,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from splatapult_tpu.core.sh import NUM_COEFFS, eval_sh_radiance, sh_basis
+from splatapult_jax.core.sh import NUM_COEFFS, eval_sh_radiance, sh_basis
 
 
 def _shader_basis(v):

@@ -1,6 +1,6 @@
 """Stereo shared-binning tests: the shared-bins render must match per-eye
 rendering (the reference's sort-once-render-twice trick, src/app.cpp:603-607,
-lifted to shared binning — see splatapult_tpu/stereo.py for the exactness
+lifted to shared binning — see splatapult_jax/stereo.py for the exactness
 argument)."""
 
 import dataclasses
@@ -9,10 +9,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import GaussianScene
-from splatapult_tpu.render import Camera, RenderConfig, render
-from splatapult_tpu.stereo import (
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import GaussianScene
+from splatapult_jax.render import Camera, RenderConfig, render
+from splatapult_jax.stereo import (
     _eye_cameras,
     render_stereo,
     stereo_instance_demand,
@@ -105,8 +105,8 @@ def test_stereo_forward_only(rng):
 def test_stereo_demand_covers_both_eyes(rng):
     scene = _random_scene(rng)
     cam = _camera()
-    from splatapult_tpu.ops.binning import TileGrid, instance_demand
-    from splatapult_tpu.render import prepare_splats
+    from splatapult_jax.ops.binning import TileGrid, instance_demand
+    from splatapult_jax.render import prepare_splats
 
     shared = int(stereo_instance_demand(scene, cam, CFG, 0.2))
     grid = TileGrid.create(width=CFG.width, height=CFG.height,
@@ -120,7 +120,7 @@ def test_stereo_demand_covers_both_eyes(rng):
 
 
 def test_calibrate_config_stereo_fits_union(rng):
-    from splatapult_tpu.stereo import calibrate_config_stereo, render_stereo
+    from splatapult_jax.stereo import calibrate_config_stereo, render_stereo
 
     scene = _random_scene(rng)
     cam = _camera()
@@ -133,7 +133,7 @@ def test_calibrate_config_stereo_fits_union(rng):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
-# ------------------------------------------- round 5: per-eye asymmetric frusta
+# ---------------------------------------------------- per-eye asymmetric frusta
 
 
 def test_stereo_pair_symmetric_tan_angles_degenerates():
@@ -157,8 +157,8 @@ def test_stereo_pair_asymmetric_frusta_render():
     src/xrbuddy.cpp:1802-1832 + util.cpp:412-480): each eye renders with its
     own projection; the outward-canted eyes must differ from the symmetric
     pair, and each eye must equal a single render with that projection."""
-    from splatapult_tpu.core.transforms import projection_from_tan_angles
-    from splatapult_tpu.render import render_batch
+    from splatapult_jax.core.transforms import projection_from_tan_angles
+    from splatapult_jax.render import render_batch
 
     rng = np.random.default_rng(77)
     scene = _random_scene(rng)

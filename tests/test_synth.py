@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from splatapult_tpu.io.synth import garden_cameras, make_garden_scene
-from splatapult_tpu.render import RenderConfig, render
+from splatapult_jax.io.synth import garden_cameras, make_garden_scene
+from splatapult_jax.render import RenderConfig, render
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +48,7 @@ def test_garden_statistics(garden_small):
 
 
 def test_garden_ply_roundtrip(tmp_path, garden_small):
-    from splatapult_tpu.io.gaussians import load_gaussian_ply, save_gaussian_ply
+    from splatapult_jax.io.gaussians import load_gaussian_ply, save_gaussian_ply
 
     small = make_garden_scene(2_000, seed=1)
     path = str(tmp_path / "garden.ply")

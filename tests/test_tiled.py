@@ -1,8 +1,10 @@
-"""Tiled Pallas pipeline tests: binning invariants, forward equivalence vs. the
+"""Tiled pipeline tests: binning invariants, forward equivalence vs. the
 global pipeline, and hand-written-VJP equivalence vs. autodiff of the global
 pipeline (SURVEY.md section 4 items 2-4; BASELINE config 3 correctness side).
 
-Runs in Pallas interpreter mode on CPU (ops/composite._interpret)."""
+On the CPU the tiled composite runs its plain jnp version
+(ops/composite.composite_impl); tests/test_composite.py holds the Triton
+kernels' interpret-mode tests."""
 
 import dataclasses
 
@@ -11,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import GaussianScene, make_debug_scene
-from splatapult_tpu.ops.binning import TileGrid, bin_splats
-from splatapult_tpu.render import Camera, RenderConfig, render
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import GaussianScene, make_debug_scene
+from splatapult_jax.ops.binning import TileGrid, bin_splats
+from splatapult_jax.render import Camera, RenderConfig, render
 
-# small blocks/tiles so CPU interpreter tests stay fast
+# small blocks/tiles so CPU tests stay fast
 TILED = RenderConfig(
     width=64, height=64, pipeline="tiled", tile_size=16, tile_block=8, max_instance_mult=20
 )
@@ -63,11 +65,16 @@ def test_binning_basic_invariants():
     # y axis: screen y=60 (gl, +y up) is near the TOP -> tile row 0
     # tile of splat 3 must be row 0, col 0
     bt = np.asarray(bins["block_tile"])
-    bf = np.asarray(bins["block_first"])
-    # block list covers each nonempty tile exactly ceil(count/8) times
+    nblk = np.asarray(bins["tile_num_blocks"])
+    first = np.asarray(bins["tile_first_block"])
+    # each nonempty tile owns exactly ceil(count/8) consecutive blocks
     blocks_expected = int(np.sum((tcount + 7) // 8))
-    assert bf.sum() == (tcount > 0).sum()
+    np.testing.assert_array_equal(nblk, (tcount + 7) // 8)
+    assert nblk.sum() == blocks_expected
     assert len(np.unique(bt[: blocks_expected])) == (tcount > 0).sum()
+    for t in np.flatnonzero(nblk):
+        assert (bt[first[t]:first[t] + nblk[t]] == t).all()
+    assert (bt[blocks_expected:] == grid.num_tiles).all()
 
 
 def test_binning_depth_order_preserved():
@@ -127,27 +134,6 @@ def test_binning_overflow_reported():
     mean3 = jnp.tile(jnp.asarray([[16.0, 16.0]]), (3, 1))
     bins3 = bin_splats(mean3, jnp.full((3,), 100.0), grid3)
     assert int(bins3["num_culled_instances"]) > 0
-
-
-@pytest.mark.parametrize("impl", ["onehot", "onehotb", "onehot2", "packed"])
-def test_binning_expand_kernel_matches_fallback(monkeypatch, rng, impl):
-    # BOTH Pallas expand-kernel impls (one-hot MXU matmul selection and
-    # packed masked-max selection) must produce bit-identical bins to the
-    # scatter+cummax+gather fallback
-    import splatapult_tpu.ops.binning as B
-
-    grid = TileGrid.create(width=96, height=64, num_splats=300, tile_size=16,
-                           block=8, max_instance_mult=4)
-    mean2d = jnp.asarray(rng.uniform(-10, 100, (300, 2)), jnp.float32)
-    ext = jnp.asarray(rng.uniform(0.0, 25.0, (300, 2)), jnp.float32)
-    ext = jnp.where(rng.uniform(size=(300, 2)) < 0.1, 0.0, ext)  # some culled
-    depth = jnp.asarray(rng.uniform(0.1, 50.0, (300,)), jnp.float32)
-    monkeypatch.setattr(B, "_EXPAND_IMPL", impl)
-    a = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-    monkeypatch.setattr(B, "_EXPAND_C", 3000)  # emax % 3000 != 0 -> fallback
-    b = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_binning_overflow_drops_farthest_with_depth():
@@ -365,8 +351,8 @@ def test_tiled_packed_feats16_bounded_error():
 
 def test_packed_feats16_roundtrip_bounds():
     # direct pack/unpack bounds at 1080p geometry (the regime it ships in)
-    from splatapult_tpu.ops.binning import TileGrid
-    from splatapult_tpu.ops.composite import (
+    from splatapult_jax.ops.binning import TileGrid
+    from splatapult_jax.ops.composite import (
         NUM_FEATS, _pack_feats16, _unpack_feats)
 
     grid = TileGrid.create(width=1920, height=1080, num_splats=64,
@@ -500,8 +486,8 @@ def test_early_stop_grads_finite_and_close():
 def test_instance_demand_matches_binning(rng):
     """instance_demand == sum of per-tile counts when capacity is ample, and
     auto-sized capacity from it binned with zero overflow."""
-    from splatapult_tpu.ops.binning import instance_demand
-    from splatapult_tpu.render import prepare_splats
+    from splatapult_jax.ops.binning import instance_demand
+    from splatapult_jax.render import prepare_splats
 
     scene = _random_scene(rng, n=96)
     cam = _camera()
@@ -525,58 +511,6 @@ def test_instance_demand_matches_binning(rng):
     bins2 = bin_splats(d["mean2d"], d["extent"], grid2, depth=d["depth"])
     assert int(bins2["num_culled_instances"]) == 0
     assert demand == int(jnp.sum(bins2["tile_count"]))
-
-
-@pytest.mark.parametrize("impl", ["onehot", "onehotb", "onehot2", "packed"])
-def test_binning_expand_window_adversarial(monkeypatch, rng, impl):
-    """Stress the expand kernel's tightened candidate window (WBLK*CTAB rows).
-
-    Worst case: every kept row covers exactly ONE slot, so a 512-slot chunk's
-    winners span exactly 512 consecutive rows; a prefix splat of a few slots
-    desynchronizes the offsets from table-block boundaries so the window must
-    absorb maximal alignment slop. Also: one giant rect covering every tile
-    (a single row covering many whole chunks), and long culled runs. Each
-    case must match the scatter+cummax fallback bit-exactly.
-    """
-    import dataclasses
-
-    import splatapult_tpu.ops.binning as B
-
-    # 16x16 tiles of 16px -> 256 tiles; tile centers as 1-slot splats
-    def one_slot_scene(n, prefix_radius, shift):
-        tx = 16
-        ids = (np.arange(n) * 7 + shift) % (tx * tx)
-        mx = (ids % tx) * 16.0 + 8.0
-        my = 256.0 - ((ids // tx) * 16.0 + 8.0)
-        mean2d = np.stack([mx, my], axis=1).astype(np.float32)
-        ext = np.full((n, 2), 0.5, np.float32)  # strictly inside one tile
-        if prefix_radius > 0:
-            mean2d[0] = [128.0, 128.0]
-            ext[0] = prefix_radius  # multi-tile rect desyncs the offsets
-        return jnp.asarray(mean2d), jnp.asarray(ext)
-
-    cases = []
-    for shift, prefix in [(0, 0.0), (3, 20.0), (11, 40.0), (5, 300.0)]:
-        cases.append(one_slot_scene(6000, prefix, shift))
-    # long culled runs between kept splats
-    m2, ex = one_slot_scene(6000, 0.0, 1)
-    ex = np.array(ex)
-    ex[np.arange(6000) % 13 < 6] = 0.0  # ~46% culled, in runs
-    cases.append((m2, jnp.asarray(ex)))
-
-    grid = TileGrid.create(width=256, height=256, num_splats=6000,
-                           tile_size=16, block=8, max_instance_mult=2)
-    assert grid.emax % B._EXPAND_C == 0  # kernel path active
-    monkeypatch.setattr(B, "_EXPAND_IMPL", impl)
-    for i, (mean2d, ext) in enumerate(cases):
-        depth = jnp.asarray(
-            rng.uniform(0.1, 50.0, (mean2d.shape[0],)), jnp.float32)
-        a = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-        with monkeypatch.context() as m:
-            m.setattr(B, "_EXPAND_C", 3000)  # emax % 3000 != 0 -> fallback
-            b = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=f"case {i}: {k}")
 
 
 # -------------------------------------------------- forward_only / depth_bits
@@ -617,7 +551,7 @@ def test_forward_only_grad_raises(rng):
 def test_depth16_matches_emulated_order(rng):
     """The packed (tile << 16 | bf16-depth) key must order instances exactly
     like a numpy emulation of (tile, depth>>16, -splat)."""
-    import splatapult_tpu.ops.binning as B
+    import splatapult_jax.ops.binning as B
 
     grid = TileGrid.create(width=64, height=64, num_splats=48, tile_size=16,
                            block=8, max_instance_mult=20, depth_bits=16)
@@ -686,7 +620,7 @@ def test_depth16_infeasible_tile_count_falls_back_exact():
 def test_depth20_matches_emulated_order(rng):
     """The packed (tile << 20 | 20-bit depth) key must order instances exactly
     like a numpy emulation of (tile, depth_bits>>11, -splat)."""
-    import splatapult_tpu.ops.binning as B
+    import splatapult_jax.ops.binning as B
 
     grid = TileGrid.create(width=64, height=64, num_splats=48, tile_size=16,
                            block=8, max_instance_mult=20, depth_bits=20)
@@ -725,7 +659,7 @@ def test_depth20_image_matches_depth32_when_separated():
 def test_depth20_boundary_2048_tiles_falls_back_exact():
     """At EXACTLY 2048 tiles the packed sentinel key (num_tiles << 20 |
     0xFFFFF) would overflow the int32 sign bit and sort pads/sentinels BEFORE
-    every real instance (ADVICE r4, high). The gate must be strict <, so a
+    every real instance. The gate must be strict <, so a
     2048-tile grid takes the exact path and matches depth_bits=32 bit-exactly.
     """
     # 1024 x 512 at tile 16 -> 64 * 32 = exactly 2048 tiles
@@ -761,85 +695,7 @@ def test_depth20_infeasible_tile_count_falls_back_exact():
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_binning_all_kept_identity_fast_path(monkeypatch, rng):
-    """With nothing culled the compaction cond takes its identity branch;
-    results must equal the scatter+cummax fallback bit-exactly."""
-    import splatapult_tpu.ops.binning as B
-
-    grid = TileGrid.create(width=256, height=256, num_splats=4096,
-                           tile_size=16, block=8, max_instance_mult=4)
-    assert grid.emax % B._EXPAND_C == 0
-    mean2d = jnp.asarray(rng.uniform(20, 230, (4096, 2)), jnp.float32)
-    ext = jnp.asarray(rng.uniform(0.5, 8.0, (4096, 2)), jnp.float32)  # all kept
-    depth = jnp.asarray(rng.uniform(0.1, 50.0, (4096,)), jnp.float32)
-    a = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-    assert a["tile_count"].sum() > 0
-    with monkeypatch.context() as m:
-        m.setattr(B, "_EXPAND_C", grid.emax + 1)  # force fallback path
-        b = jax.tree.map(np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-    for k in a:
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-
-
-def test_compaction_skip_modes_bit_exact(monkeypatch, rng):
-    """Lightly-culled views (scattered empty rects, the bench-view shape) must
-    bin identically under all three _COMPACT_MODE settings: 'auto' takes the
-    in-place branch (culled rows as inert sentinel rows), which must match
-    the forced partition sort bit for bit."""
-    import splatapult_tpu.ops.binning as B
-
-    grid = TileGrid.create(width=256, height=256, num_splats=4096,
-                           tile_size=16, block=8, max_instance_mult=4)
-    assert grid.emax % B._EXPAND_C == 0
-    mean2d = jnp.asarray(rng.uniform(20, 230, (4096, 2)), jnp.float32)
-    ext = np.asarray(rng.uniform(0.5, 8.0, (4096, 2)), np.float32)
-    culled = rng.permutation(4096)[:97]  # ~2% scattered, like edge clipping
-    ext[culled] = 0.0
-    ext = jnp.asarray(ext)
-    depth = jnp.asarray(rng.uniform(0.1, 50.0, (4096,)), jnp.float32)
-    outs = {}
-    for mode in ("always", "never", "auto"):
-        with monkeypatch.context() as m:
-            m.setattr(B, "_COMPACT_MODE", mode)
-            outs[mode] = jax.tree.map(
-                np.asarray, bin_splats(mean2d, ext, grid, depth=depth))
-    assert outs["auto"]["tile_count"].sum() > 0
-    for k in outs["always"]:
-        np.testing.assert_array_equal(outs["always"][k], outs["auto"][k],
-                                      err_msg=f"auto: {k}")
-        np.testing.assert_array_equal(outs["always"][k], outs["never"][k],
-                                      err_msg=f"never: {k}")
-
-
-def test_split_gather_bit_exact(monkeypatch, rng):
-    """The column-split big-table gather must be bit-identical to the single
-    take (it is exactly the same rows, fetched in two halves)."""
-    import splatapult_tpu.ops.composite as C
-
-    scene = _random_scene(rng)
-    cam = _camera()
-    cfg = dataclasses.replace(TILED, packed_colors=True)
-    a = np.asarray(render(scene, cam, cfg))
-    with monkeypatch.context() as m:
-        m.setattr(C, "_GATHER_SPLIT_BYTES", 64)  # force the split path
-        b = np.asarray(render(scene, cam, cfg))
-    np.testing.assert_array_equal(a, b)
-
-    # grads flow identically through the split path (it sits inside the
-    # custom-vjp forward)
-    def loss(s, cfg):
-        return jnp.sum(render(s, cam, cfg) ** 2)
-
-    ga = jax.grad(loss)(scene, cfg)
-    with monkeypatch.context() as m:
-        m.setattr(C, "_GATHER_SPLIT_BYTES", 64)
-        gb = jax.grad(loss)(scene, cfg)
-    for name in ("means", "sh", "opacities", "log_scales", "quats"):
-        np.testing.assert_array_equal(np.asarray(getattr(ga, name)),
-                                      np.asarray(getattr(gb, name)), err_msg=name)
-
-
-# ------------------------------------------------ round 5: banded sort pipeline
+# --------------------------------------------------------- banded sort pipeline
 
 
 def test_sort_bands_render_bit_identical(rng):
@@ -894,7 +750,7 @@ def test_sort_bands_calibration_sizes_per_band(rng):
     """calibrate_config with sort_bands sizes capacity to the PEAK BAND
     demand (smaller than full-view), and the banded render with that
     capacity matches the unbanded full-capacity render."""
-    from splatapult_tpu.render import calibrate_config
+    from splatapult_jax.render import calibrate_config
 
     scene = _random_scene(rng, n=2048)
     cam = _camera()
@@ -909,8 +765,8 @@ def test_sort_bands_calibration_sizes_per_band(rng):
 
 def test_sort_bands_overflow_counted(rng):
     """Starved per-band capacity must COUNT its drops (never silent)."""
-    from splatapult_tpu.ops.tiled import composite_tiled
-    from splatapult_tpu.render import prepare_splats
+    from splatapult_jax.ops.tiled import composite_tiled
+    from splatapult_jax.render import prepare_splats
 
     # big extents so the raw demand clears the 4096-row emax floor
     scene = _random_scene(rng, n=2048, spread=0.5)

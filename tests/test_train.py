@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
-from splatapult_tpu.io.gaussians import GaussianScene, make_debug_scene
-from splatapult_tpu.render import Camera, RenderConfig, render
-from splatapult_tpu.train import fit_scene
+from splatapult_jax.core import transforms as T
+from splatapult_jax.io.gaussians import GaussianScene, make_debug_scene
+from splatapult_jax.render import Camera, RenderConfig, render
+from splatapult_jax.train import fit_scene
 
 CFG = RenderConfig(width=48, height=48, pipeline="global", block_size=8, alpha_cutoff=0.0)
 
@@ -50,7 +50,7 @@ def test_fit_recovers_perturbed_scene():
 
 
 def test_fit_with_mesh():
-    from splatapult_tpu.parallel.mesh import make_render_mesh
+    from splatapult_jax.parallel.mesh import make_render_mesh
 
     target_scene = make_debug_scene()
     cfg = RenderConfig(width=32, height=32, pipeline="tiled", tile_size=16, tile_block=8,
@@ -99,12 +99,13 @@ def test_fit_scan_matches_step_loop():
 
 
 def test_fit_demo_tiny_smoke(tmp_path):
-    """tools/fit_demo.py --tiny: the committed production-training artifact
-    generator runs end to end (targets -> perturb -> fit -> checkpoint
-    round-trip -> artifacts) and the loss drops."""
+    """tools/fit_demo.py --tiny: the training-run artifact generator runs
+    end to end (targets -> perturb -> fit -> checkpoint round-trip ->
+    artifacts) and the loss drops."""
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tools.fit_demo import main as fit_demo_main
 
     summary = fit_demo_main(["--tiny", "--out", str(tmp_path)])
@@ -118,7 +119,7 @@ def test_fit_demo_tiny_smoke(tmp_path):
 def test_fit_with_mesh_param_shard():
     """fit_scene(param_shard=True): the ZeRO loop converges like the
     replicated mesh loop (same math; see test_parallel's equality tests)."""
-    from splatapult_tpu.parallel.mesh import make_render_mesh
+    from splatapult_jax.parallel.mesh import make_render_mesh
 
     target_scene = make_debug_scene()
     cfg = RenderConfig(width=32, height=32, pipeline="tiled", tile_size=16,

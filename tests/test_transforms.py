@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from splatapult_tpu.core import transforms as T
+from splatapult_jax.core import transforms as T
 
 
 def _random_quats(rng, n):
